@@ -27,14 +27,14 @@ def main() -> None:
 
     import numpy as np
 
-    from montecarlolocalisation_tpu.config import FilterConfig
-    from montecarlolocalisation_tpu.maps import from_map_file
-    from montecarlolocalisation_tpu.parallel import multihost
-    from montecarlolocalisation_tpu.sim import robot
+    from montecarlolocalisation.config import FilterConfig
+    from montecarlolocalisation.maps import from_map_file
+    from montecarlolocalisation.parallel import multihost
+    from montecarlolocalisation.sim import robot
 
     m = from_map_file(osp.join(
         osp.dirname(osp.abspath(__file__)), "..",
-        "montecarlolocalisation_tpu", "maps", "default_map.txt"))
+        "montecarlolocalisation", "maps", "default_map.txt"))
     cfg = FilterConfig(num_particles=128)
     angles = np.deg2rad(np.linspace(-118, 118, 8)).astype(np.float32)
     total, ticks = 8, 12  # 8 episodes: one per global device of the

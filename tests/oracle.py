@@ -88,6 +88,52 @@ class Oracle:
             r += 0.1
         return max_range
 
+    def raycast_exact(self, x, y, angle_rad, max_range=None):
+        """Vectorized float64 Amanatides-Woo traversal: distance to the
+        face of the first occupied cell along each ray (max_range when
+        none is entered before max_range; 0 in an occupied origin cell;
+        max_range from an out-of-map origin).  The geometry the exact
+        casters (models/raycast "dda"/"analytic") compute in float32."""
+        max_range = self.max_range if max_range is None else max_range
+        x, y, a = np.broadcast_arrays(*(np.asarray(v, np.float64)
+                                        for v in (x, y, angle_rad)))
+        dx, dy = np.cos(a), np.sin(a)
+        gx, gy = (x - self.ox) / self.res, (y - self.oy) / self.res
+        ix, iy = np.floor(gx).astype(np.int64), np.floor(gy).astype(np.int64)
+        sx, sy = np.where(dx >= 0, 1, -1), np.where(dy >= 0, 1, -1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tdx = np.where(dx != 0, self.res / np.abs(dx), np.inf)
+            tdy = np.where(dy != 0, self.res / np.abs(dy), np.inf)
+            tx = np.where(dx != 0, np.where(dx >= 0, ix + 1 - gx, gx - ix)
+                          * tdx, np.inf)
+            ty = np.where(dy != 0, np.where(dy >= 0, iy + 1 - gy, gy - iy)
+                          * tdy, np.inf)
+
+        def inb(i, j):
+            return (i >= 0) & (j >= 0) & (i < self.w) & (j < self.h)
+
+        def occ(i, j):
+            return inb(i, j) & self.occ[np.clip(j, 0, self.h - 1),
+                                        np.clip(i, 0, self.w - 1)]
+
+        dist = np.full(x.shape, float(max_range))
+        done = ~inb(ix, iy)
+        start = occ(ix, iy) & ~done
+        dist[start] = 0.0
+        done |= start
+        for _ in range(int(math.ceil(max_range / self.res)) * 2 + 2):
+            take_x = tx < ty
+            t = np.where(take_x, tx, ty)
+            ix = np.where(take_x, ix + sx, ix)
+            iy = np.where(take_x, iy, iy + sy)
+            tx = np.where(take_x, tx + tdx, tx)
+            ty = np.where(take_x, ty, ty + tdy)
+            out = ~inb(ix, iy) | (t >= max_range)
+            hit = ~done & ~out & occ(ix, iy)
+            dist = np.where(hit, t, dist)
+            done |= hit | out
+        return dist
+
     # -- computeWeight (monte_carlo.cpp:623-682) --
     def compute_weight(self, particle, beam_angles, beam_ranges):
         x, y, th = particle

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import AlignConfig
-from montecarlolocalisation_tpu.control import align
+from montecarlolocalisation.config import AlignConfig
+from montecarlolocalisation.control import align
 
 
 def corner_scan(n=360, wall_x=0.5, wall_y=-0.4, noise=0.003, seed=0):
@@ -114,11 +114,11 @@ def test_align_explores_from_open_space():
     one-shot flow would return an empty plan."""
     import jax as _jax
 
-    from montecarlolocalisation_tpu.config import (
+    from montecarlolocalisation.config import (
         WALL_BOTTOM, WALL_LEFT, WALL_RIGHT, WALL_TOP, FilterConfig,
         SensorModelConfig)
-    from montecarlolocalisation_tpu.maps import from_walls
-    from montecarlolocalisation_tpu.sim import align_sim
+    from montecarlolocalisation.maps import from_walls
+    from montecarlolocalisation.sim import align_sim
 
     room = [[[e for e, on in ((WALL_TOP, r == 0), (WALL_BOTTOM, r == 2),
                               (WALL_LEFT, c == 0), (WALL_RIGHT, c == 2))
@@ -146,11 +146,11 @@ def test_render_align_draws_all_marker_layers():
     intersection must all land in the frame."""
     import jax as _jax
 
-    from montecarlolocalisation_tpu.config import (FilterConfig,
+    from montecarlolocalisation.config import (FilterConfig,
                                                    SensorModelConfig)
-    from montecarlolocalisation_tpu.maps import from_walls
-    from montecarlolocalisation_tpu.sim import align_sim
-    from montecarlolocalisation_tpu.utils import viz
+    from montecarlolocalisation.maps import from_walls
+    from montecarlolocalisation.sim import align_sim
+    from montecarlolocalisation.utils import viz
 
     box = from_walls([[[0, 1, 2, 3]]])
     cfg = FilterConfig(sensor=SensorModelConfig(ray_mode="dda"))
@@ -174,9 +174,9 @@ def test_align_sim_end_to_end_roughly_centers():
     4-action two-wall plan with a 90-degree second rotation."""
     import jax as _jax
 
-    from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-    from montecarlolocalisation_tpu.maps import from_walls
-    from montecarlolocalisation_tpu.sim import align_sim
+    from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+    from montecarlolocalisation.maps import from_walls
+    from montecarlolocalisation.sim import align_sim
 
     box = from_walls([[[0, 1, 2, 3]]])
     cfg = FilterConfig(sensor=SensorModelConfig(ray_mode="dda"))

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_map_file, from_walls
-from montecarlolocalisation_tpu.models.raycast import raycast
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.maps import from_map_file, from_walls
+from montecarlolocalisation.models.raycast import raycast
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 DDA = SensorModelConfig(ray_mode="dda", lookup_mode="gather")
@@ -41,7 +41,7 @@ def test_exact_equivalence_box():
 
 
 def test_exact_equivalence_generated_maze():
-    from montecarlolocalisation_tpu.maps import generator
+    from montecarlolocalisation.maps import generator
 
     m = from_walls(generator.generate_maze(5, 7, seed=3))
     diff = _compare(m)
@@ -67,7 +67,7 @@ def test_ragged_map_falls_back_to_dda():
 
 
 def test_beam_weights_with_analytic_mode():
-    from montecarlolocalisation_tpu.models import resample, sensor
+    from montecarlolocalisation.models import resample, sensor
 
     m = from_map_file(MAP_PATH)
     angles = np.deg2rad(np.linspace(-118, 118, 16)).astype(np.float32)
@@ -111,7 +111,7 @@ def test_first_bit_pos_exhaustive_patterns():
     # Directional bit scan vs numpy, over adversarial 64-bit patterns:
     # single bits at every position, runs, the INT_MIN boundary, and the
     # rounding-overshoot values (0x7fffffff family).
-    from montecarlolocalisation_tpu.ops.analytic import _first_bit_pos
+    from montecarlolocalisation.ops.analytic import _first_bit_pos
 
     vals = [1 << i for i in range(64)]
     vals += [(1 << i) | (1 << j) for i in range(0, 64, 7)
@@ -135,7 +135,7 @@ def test_exact_equivalence_fuzz_random_maps():
     # Fuzz across map FAMILIES x sizes x seeds: perfect mazes, loopy
     # mazes, BSP rooms — all gridline-structured, all must match DDA to
     # pixel-tie tolerance on random rays (incl. out-of-map origins).
-    from montecarlolocalisation_tpu.maps import generator
+    from montecarlolocalisation.maps import generator
 
     cases = [
         generator.generate_maze(3, 3, seed=11),

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlolocalisation_tpu.config import (FilterConfig,
+from montecarlolocalisation.config import (FilterConfig,
                                                MotionModelConfig,
                                                SensorModelConfig)
-from montecarlolocalisation_tpu.models import calibrate, sensor
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.models import calibrate, sensor
+from montecarlolocalisation.sim import robot
 import pytest
 
 

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_map_file, maze as maze_mod
-from montecarlolocalisation_tpu.planning import bfs
-from montecarlolocalisation_tpu.sim import closed_loop
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.maps import from_map_file, maze as maze_mod
+from montecarlolocalisation.planning import bfs
+from montecarlolocalisation.sim import closed_loop
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 CFG = FilterConfig(num_particles=400,

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     APFConfig, MotionModelConfig, PIDConfig, WandererConfig,
 )
-from montecarlolocalisation_tpu.control import controllers as C
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.control import controllers as C
+from montecarlolocalisation.sim import robot
 
 MCFG = MotionModelConfig()
 DT = 0.1
@@ -164,7 +164,7 @@ def test_render_apf_draws_all_marker_layers():
     avf.cpp:292-294, potential_field.cpp:446-447): scan points, the
     influence circle, and all three force arrows must land in the
     frame."""
-    from montecarlolocalisation_tpu.utils import viz
+    from montecarlolocalisation.utils import viz
 
     cfg = APFConfig.potential_field()
     # Obstacle points ahead-left WELL inside the influence radius (close
@@ -216,7 +216,7 @@ def test_draw_heading_error_arrow():
     """Heading-error arrow renders at the robot, pointing along
     theta + error (moveToPosition_server.cpp:94-130): the arrow tip
     must land ~0.5 m from the pose in that direction."""
-    from montecarlolocalisation_tpu.utils import viz
+    from montecarlolocalisation.utils import viz
 
     img = np.full((400, 400, 3), 255, np.uint8)
     pose = np.asarray([4.0, 4.0, 0.5])

@@ -15,15 +15,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     FilterConfig, ResampleConfig, SensorModelConfig,
 )
-from montecarlolocalisation_tpu.maps import from_map_file, from_walls
-from montecarlolocalisation_tpu.models import filter as mcl
-from montecarlolocalisation_tpu.models import resample
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.maps import from_map_file, from_walls
+from montecarlolocalisation.models import filter as mcl
+from montecarlolocalisation.models import resample
+from montecarlolocalisation.sim import robot
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 SMALL_MAP = from_walls([[[0, 1, 2], [1], [0, 1]],
                         [[2, 3], [3], [0, 3]]])
@@ -113,7 +113,7 @@ def test_default_none_is_reference_path(maze_cfg=None):
     maze = from_map_file(MAP_PATH)
     cfg = FilterConfig(num_particles=256)
     assert cfg.resample.ess_threshold is None
-    from montecarlolocalisation_tpu.models import sensor
+    from montecarlolocalisation.models import sensor
     angles = np.deg2rad(np.linspace(-118, 118, 12)).astype(np.float32)
     st = mcl.init_state(jax.random.PRNGKey(0), maze, cfg)
     scan = sensor.simulate_scan(
@@ -188,7 +188,7 @@ def test_gate_fires_some_skips_in_tracking():
         best_pose=jnp.asarray(start, jnp.float32))
     skips = 0
     step = jax.jit(functools.partial(mcl.mcl_step, m=maze, cfg=cfg))
-    from montecarlolocalisation_tpu.models import sensor as snsr
+    from montecarlolocalisation.models import sensor as snsr
     for t in range(enc.shape[0]):
         sc = snsr.Scan(angles=jnp.asarray(angles), ranges=ranges[t],
                        mask=jnp.ones((angles.shape[0],), bool))

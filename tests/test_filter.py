@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     FilterConfig, SensorModelConfig, ResampleConfig,
 )
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import filter as mcl
-from montecarlolocalisation_tpu.models import sensor
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import filter as mcl
+from montecarlolocalisation.models import sensor
+from montecarlolocalisation.sim import robot
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 CFG = FilterConfig(

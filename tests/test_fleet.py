@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.io.fleet import MCLFleetServer
-from montecarlolocalisation_tpu.models import filter as mcl
-from montecarlolocalisation_tpu.models import sensor
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.io.fleet import MCLFleetServer
+from montecarlolocalisation.models import filter as mcl
+from montecarlolocalisation.models import sensor
 
 N_ROBOTS = 3
 N_BEAMS = 8
@@ -202,15 +202,15 @@ def test_fleet_sharded_over_mesh(default_map, cfg):
 # Fleet SLAM serving (SLAMFleetServer)
 # ---------------------------------------------------------------------------
 def _slam_fleet(robots=3, ticks=25, seed=0):
-    from montecarlolocalisation_tpu.config import MappingConfig, SLAMConfig
-    from montecarlolocalisation_tpu.io.fleet import SLAMFleetServer
-    from montecarlolocalisation_tpu.maps import from_map_file
+    from montecarlolocalisation.config import MappingConfig, SLAMConfig
+    from montecarlolocalisation.io.fleet import SLAMFleetServer
+    from montecarlolocalisation.maps import from_map_file
     import os.path as osp
 
-    from montecarlolocalisation_tpu.sim import robot
+    from montecarlolocalisation.sim import robot
 
     m = from_map_file(osp.join(osp.dirname(__file__), "..",
-                               "montecarlolocalisation_tpu", "maps",
+                               "montecarlolocalisation", "maps",
                                "default_map.txt"))
     fcfg = FilterConfig()
     angles = np.deg2rad(np.linspace(-118, 118, 12)).astype(np.float32)
@@ -238,7 +238,7 @@ def test_slam_fleet_matches_standalone_per_robot():
     """Each fleet robot's pose stream must equal a standalone SLAM episode
     run with the fleet's per-robot key (fold_in(seed, r)) — the vmap is a
     batching, not a semantic change."""
-    from montecarlolocalisation_tpu.models import slam
+    from montecarlolocalisation.models import slam
 
     srv, eps, m = _slam_fleet()
     T = eps[0][0].shape[0]
@@ -263,8 +263,8 @@ def test_slam_fleet_fused_map_covers_more(tmp_path):
     """Three robots mapping from different corners: the FUSED grid has
     more observed evidence than any single robot's best map, and the
     export round-trips through map_server format."""
-    from montecarlolocalisation_tpu.maps import from_pgm
-    from montecarlolocalisation_tpu.models import slam as slam_mod
+    from montecarlolocalisation.maps import from_pgm
+    from montecarlolocalisation.models import slam as slam_mod
 
     srv, eps, m = _slam_fleet(ticks=40)
     T = eps[0][0].shape[0]

@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (FilterConfig, MappingConfig,
+from montecarlolocalisation.config import (FilterConfig, MappingConfig,
                                                SLAMConfig)
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import mapping, slam
-from montecarlolocalisation_tpu.sim import frontier
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import mapping, slam
+from montecarlolocalisation.sim import frontier
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 
@@ -124,7 +124,7 @@ def test_wallfollow_turns_away_from_followed_wall():
     # Face a wall dead ahead so the avoidance turn starts immediately.
     import dataclasses as dc
 
-    from montecarlolocalisation_tpu.sim import robot as R
+    from montecarlolocalisation.sim import robot as R
 
     st = dc.replace(st, robot=R.make_robot(0.35, 1.25, jnp.pi))
     wps = jnp.zeros((4, 2), jnp.float32)

@@ -3,11 +3,11 @@ import jax
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_walls, generator
-from montecarlolocalisation_tpu.planning import bfs
-from montecarlolocalisation_tpu.maps import maze as maze_mod
-from montecarlolocalisation_tpu.parallel import episodes
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.maps import from_walls, generator
+from montecarlolocalisation.planning import bfs
+from montecarlolocalisation.maps import maze as maze_mod
+from montecarlolocalisation.parallel import episodes
 
 
 def test_generated_maze_valid_and_connected():

@@ -7,17 +7,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     FilterConfig, MotionModelConfig, SensorModelConfig,
 )
-from montecarlolocalisation_tpu.control import timed
-from montecarlolocalisation_tpu.io import EpisodeLog, load_pytree, replay, save_pytree
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import filter as mcl
-from montecarlolocalisation_tpu.models.sensor import filter_scan
-from montecarlolocalisation_tpu.utils import viz
+from montecarlolocalisation.control import timed
+from montecarlolocalisation.io import EpisodeLog, load_pytree, replay, save_pytree
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import filter as mcl
+from montecarlolocalisation.models.sensor import filter_scan
+from montecarlolocalisation.utils import viz
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 
@@ -133,13 +133,13 @@ def test_viz_render(tmp_path):
 
 @pytest.mark.slow
 def test_profiling_stage_times():
-    from montecarlolocalisation_tpu.utils import profiling
+    from montecarlolocalisation.utils import profiling
 
     maze = from_map_file(MAP_PATH)
     cfg = FilterConfig(num_particles=128)
     import jax as _jax
     import numpy as _np
-    from montecarlolocalisation_tpu.models import sensor as S
+    from montecarlolocalisation.models import sensor as S
     angles = _np.deg2rad(_np.linspace(-118, 118, 8)).astype(_np.float32)
     scan = S.simulate_scan(maze, jnp.array([1.25, 1.25, 0.0]), angles,
                            cfg.sensor)

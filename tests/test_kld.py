@@ -13,14 +13,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlolocalisation_tpu.config import FilterConfig, KLDConfig
-from montecarlolocalisation_tpu.io.server import MCLServer
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import kld, sensor
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.config import FilterConfig, KLDConfig
+from montecarlolocalisation.io.server import MCLServer
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import kld, sensor
+from montecarlolocalisation.sim import robot
 import pytest
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 

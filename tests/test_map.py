@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     GridConfig, WALL_RIGHT, WALL_TOP, WALL_LEFT, WALL_BOTTOM,
 )
-from montecarlolocalisation_tpu.maps import maze, raster, grid
+from montecarlolocalisation.maps import maze, raster, grid
 
 
 MAP_TEXT = """[[[T, L, R],  [T, L],    [T, R],  [T, L],  [T, B],  [T, R, B]],
@@ -123,10 +123,10 @@ def test_default_map_loads(default_map):
 
 
 def test_native_rasterizer_matches_python():
-    from montecarlolocalisation_tpu.maps.raster import (
+    from montecarlolocalisation.maps.raster import (
         _rasterize_native, rasterize_walls_py,
     )
-    from montecarlolocalisation_tpu.config import GridConfig
+    from montecarlolocalisation.config import GridConfig
 
     cases = [
         maze.parse_map_text(MAP_TEXT),

@@ -15,12 +15,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlolocalisation_tpu.config import FilterConfig, MappingConfig
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import mapping, sensor
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.config import FilterConfig, MappingConfig
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import mapping, sensor
+from montecarlolocalisation.sim import robot
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 
@@ -150,7 +150,7 @@ def test_wall_recovery_on_default_maze():
     # well-observed edge decided wrong.
     cell_px = 8
     fp = np.argwhere(learned & ~truth)
-    from montecarlolocalisation_tpu.config import (
+    from montecarlolocalisation.config import (
         WALL_RIGHT, WALL_TOP, WALL_LEFT, WALL_BOTTOM)
     for r, c, e in fp:
         r0, c0 = r * cell_px, c * cell_px
@@ -185,7 +185,7 @@ def test_fit_walls_recovers_2px_shifted_walls():
     occ = np.asarray(m.occ, bool)
     lo = np.where(occ, 8.0, -2.0)
     truth = np.asarray(m.walls)
-    from montecarlolocalisation_tpu.config import WALL_TOP, WALL_BOTTOM
+    from montecarlolocalisation.config import WALL_TOP, WALL_BOTTOM
 
     # Identity sanity: unshifted ideal raster reproduces the maze.
     assert np.array_equal(mapping.fit_walls(lo), truth)
@@ -263,7 +263,7 @@ def test_windowed_update_bit_exact_with_full_grid():
     in map AREA); it must be BIT-exact with the full-grid classification —
     on the default 6x6 maze raster AND a 12x10-cell (97x81 px) maze,
     including poses near borders and outside the map."""
-    from montecarlolocalisation_tpu.maps import from_walls, generator
+    from montecarlolocalisation.maps import from_walls, generator
 
     scfg = FilterConfig().sensor
     rng = np.random.RandomState(7)
@@ -301,7 +301,7 @@ def test_export_learned_map_roundtrip(tmp_path):
     occupied pixels survive exactly; unknown pixels re-import as occupied
     (from_pgm's conservative default) so the filter keeps particles out
     of unexplored space."""
-    from montecarlolocalisation_tpu.maps import from_pgm
+    from montecarlolocalisation.maps import from_pgm
 
     m = _maze()
     mc = _mc(m)
@@ -336,8 +336,8 @@ def test_unknown_aware_reloc_on_half_explored_map():
     episodes that wander near/through the frontier at least as well as
     the phantom-wall conservative scorer — and must actually work in
     absolute terms."""
-    from montecarlolocalisation_tpu import presets
-    from montecarlolocalisation_tpu.presets import (_maze_from_wall_tensor,
+    from montecarlolocalisation import presets
+    from montecarlolocalisation.presets import (_maze_from_wall_tensor,
                                                     _relocalize_on)
 
     world = presets.make_world(num_particles=1500, num_beams=24)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import MotionModelConfig
-from montecarlolocalisation_tpu.models import motion
+from montecarlolocalisation.config import MotionModelConfig
+from montecarlolocalisation.models import motion
 
 CFG = MotionModelConfig()
 NOISE_FREE = MotionModelConfig(alpha_1=0, alpha_2=0, alpha_3=0, alpha_4=0)

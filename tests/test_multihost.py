@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.parallel import episodes, multihost
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.parallel import episodes, multihost
 
 
 def test_initialize_single_process_noop(monkeypatch):

@@ -1,15 +1,15 @@
-"""Op-level tests: bit-packed lookups and one-hot MXU lookups vs the raster."""
+"""Op-level tests: bit-packed lookups and one-hot lookups vs the raster."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.maps import from_map_file, from_walls
-from montecarlolocalisation_tpu.ops import bitlookup, lookup
+from montecarlolocalisation.maps import from_map_file, from_walls
+from montecarlolocalisation.ops import bitlookup, lookup
 
 import os.path as osp
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 
@@ -76,8 +76,8 @@ def test_onehot_lookup_matches_raster():
 def test_beam_weights_backends_agree():
     import math
 
-    from montecarlolocalisation_tpu.config import SensorModelConfig
-    from montecarlolocalisation_tpu.models import resample, sensor
+    from montecarlolocalisation.config import SensorModelConfig
+    from montecarlolocalisation.models import resample, sensor
 
     m = from_map_file(MAP_PATH)
     angles = np.deg2rad(np.linspace(-118, 118, 8)).astype(np.float32)
@@ -95,7 +95,7 @@ def test_beam_weights_backends_agree():
 
 
 def test_valid_pos_dilated_matches_stencil():
-    from montecarlolocalisation_tpu.maps import grid
+    from montecarlolocalisation.maps import grid
 
     m = from_map_file(MAP_PATH)
     rng = np.random.default_rng(0)
@@ -115,15 +115,15 @@ def test_stage_knockout_times_smoke():
     import jax
     import jax.numpy as jnp
 
-    from montecarlolocalisation_tpu.config import FilterConfig
-    from montecarlolocalisation_tpu.maps import from_map_file
-    from montecarlolocalisation_tpu.models import filter as mcl, sensor
-    from montecarlolocalisation_tpu.utils.profiling import (
+    from montecarlolocalisation.config import FilterConfig
+    from montecarlolocalisation.maps import from_map_file
+    from montecarlolocalisation.models import filter as mcl, sensor
+    from montecarlolocalisation.utils.profiling import (
         stage_knockout_times,
     )
 
     m = from_map_file(osp.join(
-        osp.dirname(__file__), "..", "montecarlolocalisation_tpu", "maps",
+        osp.dirname(__file__), "..", "montecarlolocalisation", "maps",
         "default_map.txt"))
     cfg = FilterConfig(num_particles=256)
     import numpy as np
@@ -149,13 +149,13 @@ def test_stage_knockout_full_matches_mcl_step():
     import jax.numpy as jnp
     import numpy as np
 
-    from montecarlolocalisation_tpu.config import FilterConfig
-    from montecarlolocalisation_tpu.maps import from_map_file
-    from montecarlolocalisation_tpu.models import filter as mcl, sensor
-    from montecarlolocalisation_tpu.utils import profiling
+    from montecarlolocalisation.config import FilterConfig
+    from montecarlolocalisation.maps import from_map_file
+    from montecarlolocalisation.models import filter as mcl, sensor
+    from montecarlolocalisation.utils import profiling
 
     m = from_map_file(osp.join(
-        osp.dirname(__file__), "..", "montecarlolocalisation_tpu", "maps",
+        osp.dirname(__file__), "..", "montecarlolocalisation", "maps",
         "default_map.txt"))
     cfg = FilterConfig(num_particles=256)
     angles = jnp.asarray(np.deg2rad(np.linspace(-118, 118, 8)), jnp.float32)

@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import motion, resample, sensor
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import motion, resample, sensor
 
 from oracle import Oracle, diff_drive_decompose
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 
@@ -51,7 +51,7 @@ def test_beam_weights_match_oracle(setup):
 def test_raycast_matches_oracle(setup):
     m, oracle, cfg, _ = setup
     rng = np.random.default_rng(1)
-    from montecarlolocalisation_tpu.models.raycast import raycast
+    from montecarlolocalisation.models.raycast import raycast
 
     xs = rng.uniform(0.2, 4.6, 128)
     ys = rng.uniform(0.2, 4.6, 128)
@@ -70,7 +70,7 @@ def test_raycast_matches_oracle(setup):
 
 def test_validity_matches_oracle(setup):
     m, oracle, cfg, _ = setup
-    from montecarlolocalisation_tpu.maps.grid import is_valid_pos
+    from montecarlolocalisation.maps.grid import is_valid_pos
 
     rng = np.random.default_rng(2)
     xs = rng.uniform(-0.2, 5.1, 512)
@@ -89,7 +89,7 @@ def test_motion_decomposition_matches_oracle():
     for enc in cases:
         cfg = motion.MotionModelConfig() if hasattr(motion, "MotionModelConfig") \
             else None
-        from montecarlolocalisation_tpu.config import MotionModelConfig
+        from montecarlolocalisation.config import MotionModelConfig
         cfg = MotionModelConfig()
         new, rot1, trans, rot2 = motion.diff_drive_update(
             st, jnp.float32(enc[0]), jnp.float32(enc[1]), cfg)
@@ -131,9 +131,9 @@ def test_episode_posterior_statistics_match_oracle(setup):
     drift shifts one of these trajectories and fails here.
     """
     from oracle import OracleFilter
-    from montecarlolocalisation_tpu.config import ResampleConfig
-    from montecarlolocalisation_tpu.models import filter as mcl
-    from montecarlolocalisation_tpu.sim import robot
+    from montecarlolocalisation.config import ResampleConfig
+    from montecarlolocalisation.models import filter as mcl
+    from montecarlolocalisation.sim import robot
 
     m, oracle, _, _ = setup
     n, ticks, seeds = 384, 24, 6

@@ -12,16 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     FilterConfig, WALL_BOTTOM, WALL_LEFT, WALL_RIGHT, WALL_TOP,
 )
-from montecarlolocalisation_tpu.maps import (
+from montecarlolocalisation.maps import (
     from_map_file, from_pgm, from_raster, grid, maze, pgm,
 )
-from montecarlolocalisation_tpu.planning import bfs
+from montecarlolocalisation.planning import bfs
 
 MAP_TXT = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
-                   "montecarlolocalisation_tpu", "maps", "default_map.txt")
+                   "montecarlolocalisation", "maps", "default_map.txt")
 
 
 # ---------------------------------------------------------------- PGM I/O
@@ -197,8 +197,8 @@ def test_imported_map_localizes(tmp_path):
     pgm.export_map(src, str(tmp_path / "m.pgm"), str(tmp_path / "m.yaml"))
     imp = from_pgm(str(tmp_path / "m.yaml"))
 
-    from montecarlolocalisation_tpu.models import filter as mcl
-    from montecarlolocalisation_tpu.models import sensor
+    from montecarlolocalisation.models import filter as mcl
+    from montecarlolocalisation.models import sensor
 
     cfg = FilterConfig(num_particles=512)
     angles = np.deg2rad(np.linspace(-118, 118, 24)).astype(np.float32)
@@ -226,7 +226,7 @@ def test_nongridline_raster_falls_back():
     occ[12, 5:20] = True  # off-gridline wall
     m = from_raster(occ, resolution=0.1)
 
-    from montecarlolocalisation_tpu.models import sensor
+    from montecarlolocalisation.models import sensor
 
     cfg = FilterConfig(num_particles=64)
     angles = np.deg2rad(np.linspace(-90, 90, 8)).astype(np.float32)

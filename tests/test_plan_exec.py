@@ -4,13 +4,13 @@ import pytest
 
 import os.path as osp
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     FilterConfig, DIR_RIGHT, DIR_DOWN, DIR_LEFT, DIR_UP,
 )
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.sim import plan_exec, robot as R
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.sim import plan_exec, robot as R
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 

@@ -5,14 +5,14 @@ import os.path as osp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     DIR_RIGHT, DIR_UP, DIR_LEFT, DIR_DOWN,
 )
-from montecarlolocalisation_tpu.maps import maze
-from montecarlolocalisation_tpu.planning import bfs, tsp, executor, mission
-from montecarlolocalisation_tpu.native.build import load_planner
+from montecarlolocalisation.maps import maze
+from montecarlolocalisation.planning import bfs, tsp, executor, mission
+from montecarlolocalisation.native.build import load_planner
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 WALLS = maze.walls_to_tensor(maze.load_map_file(MAP_PATH))
 

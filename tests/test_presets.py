@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu import presets
+from montecarlolocalisation import presets
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +69,7 @@ def test_tick_chunked_sweep_bit_identical(world):
     (the per-tick RNG rides in the carried MCLState), including a ragged
     final chunk."""
     import jax
-    from montecarlolocalisation_tpu.parallel import episodes
+    from montecarlolocalisation.parallel import episodes
 
     k1, k2 = jax.random.split(jax.random.PRNGKey(3))
     enc, scans, _ = episodes.simulate_episode_batch(

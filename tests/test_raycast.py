@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_walls
-from montecarlolocalisation_tpu.models.raycast import raycast
+from montecarlolocalisation.config import SensorModelConfig
+from montecarlolocalisation.maps import from_walls
+from montecarlolocalisation.models.raycast import raycast
 
 # Single closed cell: walls all around. Raster 9x9; right wall pixels at
 # x in [0.8, 0.9), bottom at y in [0.8, 0.9), top row y in [0, 0.1),

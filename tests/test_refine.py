@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, RefineConfig
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import filter as mcl
-from montecarlolocalisation_tpu.models import refine, sensor
+from montecarlolocalisation.config import FilterConfig, RefineConfig
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import filter as mcl
+from montecarlolocalisation.models import refine, sensor
 
-MAP = "montecarlolocalisation_tpu/maps/default_map.txt"
+MAP = "montecarlolocalisation/maps/default_map.txt"
 ANGLES = np.deg2rad(np.linspace(-118, 118, 24)).astype(np.float32)
 TRUE_POSE = jnp.array([2.05, 2.05, 0.3], jnp.float32)
 

@@ -11,12 +11,12 @@ import jax
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.io import EpisodeLog
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import filter as mcl
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.io import EpisodeLog
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import filter as mcl
 
-PKG = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu")
+PKG = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation")
 FIXTURE = osp.join(PKG, "data", "replay_6x6.npz")
 
 

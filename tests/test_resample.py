@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, ResampleConfig
-from montecarlolocalisation_tpu.maps import from_walls
-from montecarlolocalisation_tpu.models import resample
+from montecarlolocalisation.config import FilterConfig, ResampleConfig
+from montecarlolocalisation.maps import from_walls
+from montecarlolocalisation.models import resample
 
 MAP = from_walls([[[0, 1, 2], [1], [0, 1]],
                   [[2, 3], [3], [0, 3]]])  # 2x3 maze
@@ -38,7 +38,7 @@ def test_packed_sampler_same_distribution():
     """The 2-word bit-packed fresh sampler must match the reference
     sampler's support and (coarsely) its distribution: same bounds, all
     cells hit ~uniformly, yaw uniform over [-pi, pi)."""
-    from montecarlolocalisation_tpu.config import InitConfig
+    from montecarlolocalisation.config import InitConfig
 
     n = 8192
     parts = np.asarray(resample.sample_uniform_particles_packed(
@@ -349,3 +349,81 @@ def test_cap_binding_sorted_keeps_marginal_frequencies():
     bins = np.add.reduceat(emp, np.arange(0, n, n // 8))
     want = np.add.reduceat(probs, np.arange(0, n, n // 8))
     np.testing.assert_allclose(bins, want, atol=0.02)
+
+
+# ---------------------------------------------------------------------------
+# Systematic expansion (scatter-max + cummax + gather, plain XLA) vs a NumPy
+# reference of the same closed form.
+# ---------------------------------------------------------------------------
+def _skewed_weights(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        w = np.ones(n)
+    elif kind == "one_hot":
+        w = np.zeros(n)
+        w[rng.integers(n)] = 1.0
+    elif kind == "all_zero":
+        w = np.zeros(n)
+    else:                               # heavy-tailed (Pareto)
+        w = rng.pareto(1.2, n)
+    return jnp.asarray(w, jnp.float32)
+
+
+def _normalized_cdf(w):
+    # resample.resample's rule: all-zero weights fall back to uniform.
+    n = w.shape[-1]
+    total = jnp.sum(w, axis=-1, keepdims=True)
+    return jnp.cumsum(jnp.where(total > 0.0, w / total, 1.0 / n), axis=-1)
+
+
+def _expand_reference(cdf, u0):
+    """Sequential expansion of the offspring counts
+    c_i = clip(floor(N cdf_i - u0) + 1, 0, N), prefix-maxed: draw k goes to
+    the first particle whose count exceeds k."""
+    cdf = np.asarray(cdf, np.float32)
+    n = cdf.shape[0]
+    c = np.clip(np.floor(np.float32(n) * cdf - np.float32(u0))
+                .astype(np.int64) + 1, 0, n)
+    c = np.maximum.accumulate(c)
+    idx = np.empty(n, np.int64)
+    i = 0
+    for k in range(n):
+        while c[i] <= k:
+            i += 1
+        idx[k] = i
+    return idx
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "vmap"])
+@pytest.mark.parametrize("kind", ["uniform", "one_hot", "all_zero",
+                                  "heavy_tailed"])
+def test_systematic_expansion_matches_numpy(kind, batched):
+    n, n_ep = 512, 3
+    keys = jax.random.split(jax.random.PRNGKey(4), n_ep)
+    parts = jax.random.normal(keys[0], (n_ep, n, 3))
+    u0 = jax.random.uniform(keys[1], (n_ep,))
+    cdf = _normalized_cdf(jnp.stack([_skewed_weights(kind, n, s)
+                                     for s in range(n_ep)]))
+    draw = lambda p, c, u: p[resample.systematic_indices(c, u)]
+    if batched:
+        got = np.asarray(jax.vmap(draw)(parts, cdf, u0))
+    else:
+        got = np.stack([np.asarray(draw(parts[e], cdf[e], u0[e]))
+                        for e in range(n_ep)])
+    for e in range(n_ep):
+        idx = _expand_reference(cdf[e], u0[e])
+        np.testing.assert_array_equal(got[e], np.asarray(parts[e])[idx])
+        if kind == "one_hot":
+            assert len(set(idx.tolist())) == 1
+        if kind in ("uniform", "all_zero"):
+            np.testing.assert_array_equal(idx, np.arange(n))
+
+
+def test_offspring_counts_monotone_and_total():
+    n = 4096
+    w = jax.random.uniform(jax.random.PRNGKey(8), (n,)) ** 6
+    cdf = _normalized_cdf(w)
+    for u0 in (0.0, 0.37, 0.999):
+        c = np.asarray(resample.offspring_counts(cdf, jnp.float32(u0)))
+        assert np.all(np.diff(c) >= 0)
+        assert 0 <= c[0] and c[-1] == n

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_walls
-from montecarlolocalisation_tpu.models import sensor
+from montecarlolocalisation.config import SensorModelConfig
+from montecarlolocalisation.maps import from_walls
+from montecarlolocalisation.models import sensor
 
 BOX = from_walls([[[0, 1, 2, 3]]])
 CFG = SensorModelConfig(ray_mode="dda")

@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlolocalisation_tpu.config import FilterConfig
-from montecarlolocalisation_tpu.io.server import MCLServer
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import filter as mcl, sensor
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.config import FilterConfig
+from montecarlolocalisation.io.server import MCLServer
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import filter as mcl, sensor
+from montecarlolocalisation.sim import robot
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 
@@ -121,8 +121,8 @@ def test_serve_protocol_loop(tmp_path):
 # reference's live node REQUIRES the hand-written map at startup)
 # ---------------------------------------------------------------------------
 def _slam_server(ticks=30, seed=0, slip=0.05):
-    from montecarlolocalisation_tpu.config import MappingConfig, SLAMConfig
-    from montecarlolocalisation_tpu.io.server import SLAMServer
+    from montecarlolocalisation.config import MappingConfig, SLAMConfig
+    from montecarlolocalisation.io.server import SLAMServer
 
     m = from_map_file(MAP_PATH)
     fcfg = FilterConfig()
@@ -145,7 +145,7 @@ def _slam_server(ticks=30, seed=0, slip=0.05):
 def test_slam_server_matches_offline_episode():
     """Feeding the episode tick-by-tick must reproduce the offline
     run_slam_episode pose estimates exactly (same step, same RNG)."""
-    from montecarlolocalisation_tpu.models import slam
+    from montecarlolocalisation.models import slam
 
     srv, enc, scans, truth = _slam_server()
     _, est = slam.run_slam_episode(
@@ -164,7 +164,7 @@ def test_slam_server_matches_offline_episode():
 
 
 def test_slam_server_export_and_checkpoint(tmp_path):
-    from montecarlolocalisation_tpu.maps import from_pgm
+    from montecarlolocalisation.maps import from_pgm
 
     srv, enc, scans, _ = _slam_server(ticks=40)
     for t in range(enc.shape[0]):
@@ -210,8 +210,8 @@ def test_slam_server_replica_mode():
     """replicas=K: outputs report the max-evidence replica (and its
     index); export_map uses the winning replica's map; single-replica
     protocol keys unchanged."""
-    from montecarlolocalisation_tpu.config import MappingConfig, SLAMConfig
-    from montecarlolocalisation_tpu.io.server import SLAMServer
+    from montecarlolocalisation.config import MappingConfig, SLAMConfig
+    from montecarlolocalisation.io.server import SLAMServer
 
     m = from_map_file(MAP_PATH)
     fcfg = FilterConfig()
@@ -237,7 +237,7 @@ def test_slam_server_replica_mode():
     assert len(ev) == 3 and out["replica"] == int(np.argmax(ev))
     # The reported pose equals a standalone replica run with the same
     # folded key.
-    from montecarlolocalisation_tpu.models import slam
+    from montecarlolocalisation.models import slam
 
     key = jax.random.fold_in(jax.random.PRNGKey(1),
                              np.uint32(out["replica"]))

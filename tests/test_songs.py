@@ -3,16 +3,16 @@
 Reference: src/songs_lib.cpp (song definitions and numbering) and its
 consumers — the MCL state machine plays 1/2 (monte_carlo.cpp:1041,1059)
 and the mission layer plays 4 per gold, 5 at pickup
-(executeChallenge.cpp:295-340).  The TPU rebuild has no speaker; parity is
+(executeChallenge.cpp:295-340).  The JAX rebuild has no speaker; parity is
 that every layer emits the SAME song numbers against one shared library.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from montecarlolocalisation_tpu.config import FilterConfig, HysteresisConfig
-from montecarlolocalisation_tpu.planning import mission
-from montecarlolocalisation_tpu.utils import songs
+from montecarlolocalisation.config import FilterConfig, HysteresisConfig
+from montecarlolocalisation.planning import mission
+from montecarlolocalisation.utils import songs
 
 
 def test_song_library_structure():
@@ -94,7 +94,7 @@ def test_filter_emits_lost_song_on_transition(default_map):
     # drops below threshold must emit song 1 + wanderer start, exactly once
     # (the reference plays the song only on the TRANSITION tick,
     # monte_carlo.cpp:1035-1045).
-    from montecarlolocalisation_tpu.models import filter as mcl
+    from montecarlolocalisation.models import filter as mcl
 
     cfg = FilterConfig(num_particles=128)
     state = mcl.init_state(jax.random.PRNGKey(0), default_map, cfg)

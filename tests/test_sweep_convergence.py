@@ -16,14 +16,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import (
+from montecarlolocalisation.config import (
     FilterConfig, RefineConfig, ResampleConfig, SensorModelConfig,
 )
-from montecarlolocalisation_tpu.maps import from_map_file, symmetry
-from montecarlolocalisation_tpu.models import filter as mcl
-from montecarlolocalisation_tpu.parallel import episodes
+from montecarlolocalisation.maps import from_map_file, symmetry
+from montecarlolocalisation.models import filter as mcl
+from montecarlolocalisation.parallel import episodes
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 CFG = FilterConfig(
     num_particles=500,
@@ -146,8 +146,8 @@ def test_run_episode_replicas_selects_per_episode_argmax(default_map):
     import jax
     import numpy as np
 
-    from montecarlolocalisation_tpu.config import FilterConfig
-    from montecarlolocalisation_tpu.parallel import episodes
+    from montecarlolocalisation.config import FilterConfig
+    from montecarlolocalisation.parallel import episodes
 
     cfg = FilterConfig(num_particles=192)
     angles = np.deg2rad(np.linspace(-118, 118, 12)).astype(np.float32)

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_map_file, maze, symmetry
-from montecarlolocalisation_tpu.models import sensor
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.maps import from_map_file, maze, symmetry
+from montecarlolocalisation.models import sensor
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
 WALLS = maze.walls_to_tensor(maze.load_map_file(MAP_PATH))
 
@@ -126,7 +126,7 @@ def test_compose_matches_sequential_application():
 
 def _rot90_symmetrized_walls(n=6, seed=5):
     """OR a random consistent wall tensor with its rot90 orbit."""
-    from montecarlolocalisation_tpu.maps import generator
+    from montecarlolocalisation.maps import generator
 
     wl = generator.generate_maze(n, n, seed=seed)
     w = np.asarray(maze.walls_to_tensor(wl)).astype(np.int8)
@@ -168,7 +168,7 @@ def test_rot90_symmetry_is_physical():
     # the LOW pixel edge of their gridline (raster.py top/left rule), so an
     # isometry about the cell lattice maps wall centers 0.1 m off their
     # mirrored counterparts -- quantile assertion, not allclose.
-    from montecarlolocalisation_tpu.maps.grid import from_walls
+    from montecarlolocalisation.maps.grid import from_walls
 
     w = _rot90_symmetrized_walls()
     s = symmetry.maze_symmetries(w)

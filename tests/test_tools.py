@@ -27,11 +27,11 @@ def render_episode():
 def test_run_and_capture_frames(render_episode, default_map, tmp_path):
     import jax
 
-    from montecarlolocalisation_tpu.config import (
+    from montecarlolocalisation.config import (
         FilterConfig, SensorModelConfig,
     )
-    from montecarlolocalisation_tpu.io.logs import EpisodeLog
-    from montecarlolocalisation_tpu.sim import robot
+    from montecarlolocalisation.io.logs import EpisodeLog
+    from montecarlolocalisation.sim import robot
 
     m = default_map
     cfg = FilterConfig(num_particles=128, sensor=SensorModelConfig())

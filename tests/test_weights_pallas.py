@@ -1,15 +1,14 @@
-"""Parity tests for the fused beam-weight Pallas kernel (ops/weights_pallas).
+"""Parity tests for the fused beam-weight kernel (ops/weights_pallas).
 
-Runs in interpret mode on the CPU test mesh (the real-TPU dispatch is
-exercised by bench.py / the graft entry); asserts the kernel matches the
-dense XLA path for every (ray_mode, beam_combine, quantize) combination the
-dispatch in sensor.beam_weights routes to it.
+The kernel is a Pallas kernel for the Triton route; here it runs in the
+Pallas interpreter on the CPU (`interpret=True`, the only way tests reach
+it).  On the card, chip_smoke.py phase 2 compares the compiled kernel with
+the dense path at 1M x 34.  Asserted here: the kernel matches the dense XLA
+path for every configuration sensor.resolve_lookup_mode routes to it,
+padding does not leak, vmap folds into the episode grid axis, and
+unsupported configurations are refused.
 
-Interpret mode executes the kernel grid as a Python loop, so cost scales
-with tiles x beams x march steps and the XLA compile cache cannot help —
-the single-launch parity tests run at ONE-tile shapes in the default
-(fast) tier, and the batched/packed launch-geometry sweeps are marked
-`slow` (same assertions, generous shapes; run with -m slow).
+The interpreter runs the grid as a Python loop, so shapes stay small.
 """
 import os.path as osp
 
@@ -18,23 +17,27 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from montecarlolocalisation_tpu.config import SensorModelConfig
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.models import resample, sensor
-from montecarlolocalisation_tpu.models.sensor import _beam_weights_dense
-from montecarlolocalisation_tpu.ops.weights_pallas import beam_weights_pallas
+from montecarlolocalisation.config import SensorModelConfig
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.models import resample, sensor
+from montecarlolocalisation.models.sensor import (
+    _beam_weights_dense, beam_weights_fused,
+)
+from montecarlolocalisation.ops.weights_pallas import (
+    BLOCK, beam_weights_kernel, supports,
+)
 
-MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation",
                     "maps", "default_map.txt")
+ANALYTIC = SensorModelConfig(ray_mode="analytic")
 
 
-def _fixture(n=1024, beams=8, seed=0):
+def _fixture(n=256, beams=8, seed=0):
     m = from_map_file(MAP_PATH)
-    cfg0 = SensorModelConfig()
     angles = np.deg2rad(np.linspace(-118, 118, beams)).astype(np.float32)
     parts = resample.sample_uniform_particles(jax.random.PRNGKey(seed), m, n)
     scan = sensor.simulate_scan(m, jnp.array([1.25, 1.25, 0.0]), angles,
-                                cfg0)
+                                ANALYTIC)
     # Exercise the mask path: pad two dead lanes.
     scan = sensor.Scan(
         angles=jnp.pad(scan.angles, (0, 2)),
@@ -44,265 +47,168 @@ def _fixture(n=1024, beams=8, seed=0):
     return m, parts, scan
 
 
-def _finish_log(m, cfg, parts, raw_logs):
-    return sensor.finish_log_weights(m, cfg, parts, raw_logs)
+def _dense(m, parts, scan, cfg):
+    return np.asarray(_beam_weights_dense(m, parts, scan, cfg,
+                                          m.resolution, "gather"))
 
 
-@pytest.mark.parametrize("ray_mode", ["fixed", "analytic"])
-@pytest.mark.parametrize("quantize", [False, True])
-def test_kernel_matches_dense_sum(ray_mode, quantize):
+def _assert_close_but_ties(got, want, rtol=1e-5, atol=1e-5, frac=0.995):
+    # Analytic casts can differ at pixel-boundary ties (the kernel's
+    # angle-addition directions differ from cos(th + a) by ulps), which
+    # shifts one beam's whole Gaussian; everything else agrees to ulps.
+    close = np.isclose(got, want, rtol=rtol, atol=atol)
+    assert close.mean() >= frac
+    np.testing.assert_allclose(got[close], want[close], rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("n", [256, 129, 1])
+def test_kernel_matches_dense_sum(n):
+    m, parts, scan = _fixture(n=n)
+    got = np.asarray(beam_weights_fused(m, parts, scan, ANALYTIC,
+                                        interpret=True))
+    assert got.shape == (n,)
+    _assert_close_but_ties(got, _dense(m, parts, scan, ANALYTIC))
+
+
+@pytest.mark.parametrize("temperature", [1.0, 2.0])
+def test_kernel_matches_dense_log(temperature):
     m, parts, scan = _fixture()
-    cfg = SensorModelConfig(ray_mode=ray_mode, quantize_ray_deg=quantize)
-    want = np.asarray(_beam_weights_dense(m, parts, scan, cfg,
-                                          m.resolution, "bits"))
-    got = np.asarray(beam_weights_pallas(m, parts, scan, cfg,
-                                         interpret=True))
-    # fixed mode matches to reassociation ulps (the kernel accumulates
-    # beams sequentially, the dense reduce re-associates); analytic can
-    # additionally differ by float rounding at pixel-boundary ties (one ray
-    # in ~1e5), which shifts a beam's whole Gaussian.
-    if ray_mode == "fixed":
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-    else:
-        close = np.isclose(got, want, rtol=1e-5, atol=1e-5)
-        assert close.mean() > 0.999
-        np.testing.assert_allclose(got[close], want[close],
-                                   rtol=1e-5, atol=1e-5)
+    cfg = SensorModelConfig(ray_mode="analytic", beam_combine="log",
+                            log_temperature=temperature)
+    got = np.asarray(beam_weights_fused(m, parts, scan, cfg,
+                                        interpret=True))
+    _assert_close_but_ties(got, _dense(m, parts, scan, cfg), rtol=1e-4,
+                           atol=1e-6)
 
 
-@pytest.mark.parametrize("ray_mode", ["fixed", "analytic"])
-def test_kernel_matches_dense_log(ray_mode):
-    m, parts, scan = _fixture()
-    cfg = SensorModelConfig(ray_mode=ray_mode, beam_combine="log",
-                            log_temperature=2.0)
-    want = np.asarray(_beam_weights_dense(m, parts, scan, cfg,
-                                          m.resolution, "bits"))
-    raw = beam_weights_pallas(m, parts, scan, cfg, interpret=True)
-    got = np.asarray(_finish_log(m, cfg, parts, raw))
-    close = np.isclose(got, want, rtol=1e-4, atol=1e-6)
-    if ray_mode == "analytic":
-        assert close.mean() > 0.999
-    else:
-        assert close.all()
-
-
-def test_kernel_rejects_dda():
+@pytest.mark.parametrize("cfg", [
+    SensorModelConfig(ray_mode="dda"),
+    SensorModelConfig(ray_mode="fixed"),
+    SensorModelConfig(ray_mode="analytic", quantize_ray_deg=True),
+], ids=["dda", "fixed", "quantized"])
+def test_kernel_rejects_dda(cfg):
     m, parts, scan = _fixture(n=64)
-    cfg = SensorModelConfig(ray_mode="dda")
+    assert not supports(m, parts, cfg, m.resolution)
     with pytest.raises(ValueError):
-        beam_weights_pallas(m, parts, scan, cfg, interpret=True)
+        beam_weights_kernel(m, parts[None], scan.angles, scan.ranges[None],
+                            scan.mask[None], cfg, interpret=True)
 
 
 def test_kernel_pads_to_tile():
-    # N not a multiple of the 1024-lane tile: padding must not leak.
-    m, parts, scan = _fixture(n=500)
-    cfg = SensorModelConfig()
-    want = np.asarray(_beam_weights_dense(m, parts, scan, cfg,
-                                          m.resolution, "bits"))
-    got = np.asarray(beam_weights_pallas(m, parts, scan, cfg,
-                                         interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # N not a multiple of BLOCK: padded lanes must not leak into the
+    # result, nor into the log-mode max shift.
+    n = BLOCK + 3
+    m, parts, scan = _fixture(n=n)
+    for combine in ("sum", "log"):
+        cfg = SensorModelConfig(ray_mode="analytic", beam_combine=combine)
+        raw = np.asarray(beam_weights_kernel(
+            m, parts[None], scan.angles, scan.ranges[None],
+            scan.mask[None].astype(jnp.float32), cfg, interpret=True))
+        assert raw.shape == (1, n)
+        got = np.asarray(beam_weights_fused(m, parts, scan, cfg,
+                                            interpret=True))
+        _assert_close_but_ties(got, _dense(m, parts, scan, cfg), rtol=1e-4,
+                               atol=1e-6)
 
 
-def _batch_fixture(n_ep=3, n=1500, beams=12):
+def _batch_fixture(n_ep=3, n=200, beams=8):
     m = from_map_file(MAP_PATH)
-    cfg0 = SensorModelConfig()
     angles = np.deg2rad(np.linspace(-118, 118, beams)).astype(np.float32)
-    keys = jax.random.split(jax.random.PRNGKey(7), n_ep + 1)
+    keys = jax.random.split(jax.random.PRNGKey(7), n_ep)
     parts = jnp.stack([
-        resample.sample_uniform_particles(k, m, n) for k in keys[:-1]])
+        resample.sample_uniform_particles(k, m, n) for k in keys])
     poses = jnp.array([[1.25, 1.25, 0.0], [2.1, 0.5, 1.2], [0.5, 3.3, -2.0]])
     ranges = jnp.stack([
-        sensor.simulate_scan(m, poses[e], angles, cfg0).ranges
+        sensor.simulate_scan(m, poses[e % 3], angles, ANALYTIC).ranges
         for e in range(n_ep)])
     mask = jnp.ones((n_ep, beams), bool).at[1, 3].set(False)
     return m, parts, jnp.asarray(angles), ranges, mask
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("ray_mode", ["fixed", "analytic"])
 @pytest.mark.parametrize("combine", ["sum", "log"])
-def test_batched_kernel_matches_per_episode(ray_mode, combine, monkeypatch):
-    from montecarlolocalisation_tpu.ops.weights_pallas import (
-        beam_weights_pallas_batched,
-    )
-
+def test_batched_dispatch_under_vmap_matches_dense(combine):
+    # vmap over episodes folds into the kernel's episode grid axis; each
+    # episode (log mode: its own max shift) equals the dense path.
     m, parts, angles, ranges, mask = _batch_fixture()
-    cfg = SensorModelConfig(ray_mode=ray_mode, beam_combine=combine)
-
-    def run():
-        got = np.asarray(beam_weights_pallas_batched(
-            m, parts, angles, ranges, mask, cfg, interpret=True))
-        want = np.stack([
-            np.asarray(beam_weights_pallas(
-                m, parts[e],
-                sensor.Scan(angles=angles, ranges=ranges[e], mask=mask[e]),
-                cfg, interpret=True))
-            for e in range(parts.shape[0])])
-        return got, want
-
-    # Default unroll: the grouped beam loop lets XLA fuse/reassociate
-    # differently per launch shape (batched grid vs single grid), so the
-    # two launches agree only to ulps.
-    got, want = run()
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=0)
-    # unroll=1 is the documented bit-exact single-beam loop: the batched
-    # launch must match the per-episode launch EXACTLY.
-    monkeypatch.setenv("MCL_BEAM_UNROLL", "1")
-    got, want = run()
-    np.testing.assert_array_equal(got, want)
+    cfg = SensorModelConfig(ray_mode="analytic", beam_combine=combine)
+    got = np.asarray(jax.vmap(lambda p, r, mk: beam_weights_fused(
+        m, p, sensor.Scan(angles=angles, ranges=r, mask=mk), cfg,
+        interpret=True))(parts, ranges, mask))
+    want = np.asarray(jax.vmap(lambda p, r, mk: _beam_weights_dense(
+        m, p, sensor.Scan(angles=angles, ranges=r, mask=mk), cfg,
+        m.resolution, "gather"))(parts, ranges, mask))
+    _assert_close_but_ties(got, want, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.slow
-def test_batched_dispatch_under_vmap_matches_dense():
-    # The custom_vmap rule on TPU routes a vmapped beam_weights call to the
-    # batched kernel; on CPU it takes the dense fallback.  Pin that the
-    # BATCHED KERNEL SEMANTICS equal the dense vmap result (what the rule
-    # promises), episode by episode, including the log epilogue.
-    m, parts, angles, ranges, mask = _batch_fixture()
-    for combine in ["sum", "log"]:
-        cfg = SensorModelConfig(ray_mode="fixed", beam_combine=combine)
-        want = np.asarray(jax.vmap(
-            lambda p, r, mk: _beam_weights_dense(
-                m, p, sensor.Scan(angles=angles, ranges=r, mask=mk), cfg,
-                m.resolution, "bits"))(parts, ranges, mask))
-        raws = []
-        for e in range(parts.shape[0]):
-            scan = sensor.Scan(angles=angles, ranges=ranges[e], mask=mask[e])
-            raw = beam_weights_pallas(m, parts[e], scan, cfg, interpret=True)
-            if combine == "log":
-                raw = _finish_log(m, cfg, parts[e], raw)
-            raws.append(np.asarray(raw))
-        got = np.stack(raws)
-        rtol = 1e-5 if combine == "sum" else 1e-4
-        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6)
-
-
-@pytest.mark.slow
 def test_batched_kernel_nested_vmap_folds():
-    # A second vmap level folds into the episode axis by reshape.
-    from montecarlolocalisation_tpu.models.sensor import (
-        _beam_weights_batched,
-    )
-
-    m, parts, angles, ranges, mask = _batch_fixture(n_ep=3, n=257)
-    cfg = SensorModelConfig(ray_mode="fixed")
-    p2 = jnp.stack([parts, parts + 0.01])          # [2, 3, N, 3]
+    # A second vmap level folds into the episode axis by reshape: the
+    # result equals one flat launch over all episodes.
+    m, parts, angles, ranges, mask = _batch_fixture(n_ep=2, n=130)
+    p2 = jnp.stack([parts, parts + 0.01])          # [2, 2, N, 3]
     r2 = jnp.stack([ranges, ranges])
-    m2 = jnp.stack([mask, mask])
-    got = jax.vmap(lambda pp, rr, mm: _beam_weights_batched(
-        m, pp, angles, rr, mm, cfg, interpret=True))(p2, r2, m2)
-    flat = _beam_weights_batched(
-        m, p2.reshape(6, 257, 3), angles, r2.reshape(6, -1),
-        m2.reshape(6, -1), cfg, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got).reshape(6, 257),
+
+    def one(p, r, mk):
+        return beam_weights_fused(
+            m, p, sensor.Scan(angles=angles, ranges=r, mask=mk), ANALYTIC,
+            interpret=True)
+
+    got = jax.vmap(jax.vmap(one))(p2, r2, jnp.stack([mask, mask]))
+    flat = beam_weights_kernel(
+        m, p2.reshape(4, 130, 3), angles, r2.reshape(4, -1),
+        jnp.stack([mask, mask]).reshape(4, -1).astype(jnp.float32),
+        ANALYTIC, interpret=True)
+    np.testing.assert_array_equal(np.asarray(got).reshape(4, 130),
                                   np.asarray(flat))
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("n,n_ep", [
-    (500, 3),    # rows=4, pack=2, one dangling episode in the last group
-    (100, 9),    # rows=1, pack=8
-    (300, 4),    # rows=3, pack=2, 2 dead sublanes per tile
-])
-def test_packed_batched_kernel_matches_per_episode(n, n_ep):
-    from montecarlolocalisation_tpu.ops.weights_pallas import (
-        beam_weights_pallas_batched, pack_geometry,
-    )
-
-    rows, n_pack, waste = pack_geometry(n)
-    assert n_pack > 1 and waste < 1.75  # parity must hold even where the
-    # dispatch gate (waste <= 1.25) would pick the dense path
-    m = from_map_file(MAP_PATH)
-    cfg0 = SensorModelConfig()
-    beams = 12
-    angles = np.deg2rad(np.linspace(-118, 118, beams)).astype(np.float32)
-    keys = jax.random.split(jax.random.PRNGKey(21), n_ep)
-    parts = jnp.stack([
-        resample.sample_uniform_particles(k, m, n) for k in keys])
-    ranges = jnp.stack([
-        sensor.simulate_scan(
-            m, jnp.array([0.9 + 0.4 * e, 1.1, 0.3 * e]), angles,
-            cfg0).ranges
-        for e in range(n_ep)])
-    mask = jnp.ones((n_ep, beams), bool).at[0, 5].set(False)
-    cfg = SensorModelConfig(ray_mode="fixed")
-    got = np.asarray(beam_weights_pallas_batched(
-        m, parts, jnp.asarray(angles), ranges, mask, cfg, interpret=True))
-    assert got.shape == (n_ep, n)
-    for e in range(n_ep):
-        scan = sensor.Scan(angles=jnp.asarray(angles), ranges=ranges[e],
-                           mask=mask[e])
-        want = np.asarray(beam_weights_pallas(m, parts[e], scan, cfg,
-                                              interpret=True))
-        np.testing.assert_array_equal(got[e], want)
+def test_per_episode_beam_table_takes_dense_path():
+    # A batched beam table cannot share the kernel's beam block: the vmap
+    # rule sends it to the dense path, bit-identical to a dense vmap.
+    m, parts, angles, ranges, mask = _batch_fixture(n_ep=2, n=64)
+    ang2 = jnp.stack([angles, angles * 0.5])
+    got = jax.vmap(lambda p, a, r, mk: beam_weights_fused(
+        m, p, sensor.Scan(angles=a, ranges=r, mask=mk), ANALYTIC,
+        interpret=True))(parts, ang2, ranges, mask)
+    want = jax.vmap(lambda p, a, r, mk: _beam_weights_dense(
+        m, p, sensor.Scan(angles=a, ranges=r, mask=mk), ANALYTIC,
+        m.resolution, "gather"))(parts, ang2, ranges, mask)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-@pytest.mark.parametrize("ray_mode", ["fixed", "analytic"])
-def test_kernel_on_wide_map(ray_mode):
+@pytest.mark.parametrize("combine", ["sum", "log"])
+def test_kernel_on_wide_map(combine):
     # Maps wider/taller than 64 raster px (> 7 cells) need multi-word bit
     # packing — regression for the W<=64 crash the map-family fuzz found.
-    from montecarlolocalisation_tpu.maps import from_walls, generator
+    from montecarlolocalisation.maps import from_walls, generator
 
     m = from_walls(generator.generate_maze(9, 12, seed=4))
-    cfg0 = SensorModelConfig()
     angles = np.deg2rad(np.linspace(-118, 118, 8)).astype(np.float32)
-    parts = resample.sample_uniform_particles(jax.random.PRNGKey(2), m, 1024)
-    scan = sensor.simulate_scan(m, jnp.array([2.0, 2.0, 0.3]), angles, cfg0)
-    cfg = SensorModelConfig(ray_mode=ray_mode)
-    want = np.asarray(_beam_weights_dense(m, parts, scan, cfg,
-                                          m.resolution, "bits"))
-    got = np.asarray(beam_weights_pallas(m, parts, scan, cfg,
-                                         interpret=True))
-    close = np.isclose(got, want, rtol=1e-5, atol=1e-6)
-    if ray_mode == "fixed":
-        assert close.all()
-    else:
-        # Analytic ties: the kernel's hoisted angle-addition directions
-        # differ from cos(th+a) by ulps, flipping pixel-boundary ties —
-        # this wall-dense 9x12 maze has ~0.5% tie lanes (the cast itself
-        # matches DDA to 1e-4 on this map in test_analytic's fuzz).
-        assert close.mean() > 0.99
-
-
-@pytest.mark.slow
-def test_fixed_march_prepared_matches_chain(monkeypatch):
-    """march_prepared (default) is bit-exact with the legacy bitlookup
-    chain march (MCL_FIXED_MARCH=loop) on a gridline map."""
-    from montecarlolocalisation_tpu.ops import weights_pallas as wp
-
-    m, parts, scan = _fixture(n=1024)
-    cfg = SensorModelConfig(ray_mode="fixed")
-    got_default = np.asarray(beam_weights_pallas(m, parts, scan, cfg,
-                                                 interpret=True))
-    monkeypatch.setenv("MCL_FIXED_MARCH", "loop")
-    got_chain = np.asarray(beam_weights_pallas(m, parts, scan, cfg,
-                                               interpret=True))
-    np.testing.assert_array_equal(got_default, got_chain)
+    parts = resample.sample_uniform_particles(jax.random.PRNGKey(2), m, 256)
+    scan = sensor.simulate_scan(m, jnp.array([2.0, 2.0, 0.3]), angles,
+                                ANALYTIC)
+    cfg = SensorModelConfig(ray_mode="analytic", beam_combine=combine)
+    got = np.asarray(beam_weights_fused(m, parts, scan, cfg,
+                                        interpret=True))
+    # This wall-dense 9x12 maze has ~0.5% tie lanes (the cast itself
+    # matches DDA to 1e-4 on this map in test_analytic's fuzz).
+    _assert_close_but_ties(got, _dense(m, parts, scan, cfg), rtol=1e-4,
+                           atol=1e-6, frac=0.99)
 
 
 def test_fixed_kernel_nongridline_chain_march():
-    """Non-gridline rasters have no analytic caster: the kernel must fall
-    back to the in-kernel bitlookup chain march and still match the dense
-    path (this is the only remaining consumer of that march)."""
-    from montecarlolocalisation_tpu.maps import from_raster
+    """Non-gridline rasters have no analytic caster: the kernel refuses
+    them, and "auto" keeps them on the dense path on every platform."""
+    from montecarlolocalisation.maps import from_raster
+    from montecarlolocalisation.ops.analytic import AnalyticCasterCache
 
     occ = np.zeros((33, 33), dtype=bool)
     occ[:, 0] = occ[:, -1] = occ[0, :] = occ[-1, :] = True
     occ[13, 4:28] = True   # off-lattice wall row
     occ[4:28, 21] = True   # off-lattice wall column
     m = from_raster(occ, resolution=0.1)
-
-    from montecarlolocalisation_tpu.ops.analytic import AnalyticCasterCache
-
     assert AnalyticCasterCache.get(m) is None  # really non-gridline
-
-    cfg = SensorModelConfig(ray_mode="fixed")
-    angles = np.deg2rad(np.linspace(-118, 118, 6)).astype(np.float32)
-    parts = resample.sample_uniform_particles(jax.random.PRNGKey(3), m, 1024)
-    scan = sensor.simulate_scan(m, jnp.array([1.6, 1.6, 0.7]), angles, cfg)
-    want = np.asarray(_beam_weights_dense(m, parts, scan, cfg,
-                                          m.resolution, "bits"))
-    got = np.asarray(beam_weights_pallas(m, parts, scan, cfg,
-                                         interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    parts = resample.sample_uniform_particles(jax.random.PRNGKey(3), m, 64)
+    assert not supports(m, parts, ANALYTIC, m.resolution)
+    for platform in ("cpu", "gpu"):
+        assert sensor.resolve_lookup_mode(m, parts, ANALYTIC, 0.1,
+                                          platform) == "gather"

@@ -20,12 +20,12 @@ import numpy as np
 
 sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), ".."))
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.io.fleet import MCLFleetServer
-from montecarlolocalisation_tpu.maps import from_map_file
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.io.fleet import MCLFleetServer
+from montecarlolocalisation.maps import from_map_file
 
 DEFAULT_MAP = osp.join(osp.dirname(osp.abspath(__file__)), "..",
-                       "montecarlolocalisation_tpu", "maps",
+                       "montecarlolocalisation", "maps",
                        "default_map.txt")
 
 
@@ -34,7 +34,7 @@ def bench_one(m, n_robots: int, particles: int, beams: int,
     import jax
     import jax.numpy as jnp
 
-    from montecarlolocalisation_tpu.models import sensor
+    from montecarlolocalisation.models import sensor
 
     cfg = FilterConfig(num_particles=particles, sensor=SensorModelConfig())
     angles = np.deg2rad(np.linspace(-118.0, 118.0, beams)).astype(np.float32)

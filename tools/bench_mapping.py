@@ -32,13 +32,13 @@ def main():
                          "(mapping.update_map dynamic_slice window)")
     args = ap.parse_args()
 
-    from montecarlolocalisation_tpu.config import FilterConfig, MappingConfig
-    from montecarlolocalisation_tpu.maps import from_map_file
-    from montecarlolocalisation_tpu.models import mapping
-    from montecarlolocalisation_tpu.parallel import episodes
+    from montecarlolocalisation.config import FilterConfig, MappingConfig
+    from montecarlolocalisation.maps import from_map_file
+    from montecarlolocalisation.models import mapping
+    from montecarlolocalisation.parallel import episodes
 
     m = from_map_file(osp.join(osp.dirname(osp.abspath(__file__)), "..",
-                               "montecarlolocalisation_tpu", "maps",
+                               "montecarlolocalisation", "maps",
                                "default_map.txt"))
     cfg = FilterConfig(num_particles=64)
     angles = np.deg2rad(np.linspace(-118, 118, args.beams)).astype(np.float32)

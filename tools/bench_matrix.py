@@ -1,6 +1,6 @@
 """Run the benchmark matrix and write BENCH_DETAILS.md.
 
-Covers the BASELINE.md configs on the real chip: reference-semantics fixed
+Covers the BASELINE.md configs on the accelerator: reference-semantics fixed
 march, exact analytic, full-fidelity 360-beam, and particle scaling.
 
 Run: python tools/bench_matrix.py
@@ -48,7 +48,10 @@ def main() -> None:
     except FileNotFoundError:
         pass
     with open(path, "w") as f:
-        f.write("# Benchmark matrix (one TPU v5e chip)\n\n")
+        import jax
+
+        dev = jax.devices()[0]
+        f.write(f"# Benchmark matrix (one {dev.device_kind})\n\n")
         f.write("Full MCL step (motion + likelihood + adaptive resampling "
                 "+ k-means confidence).\n\n")
         f.write("| Config | Args | Result | Wall (s, incl. compile) |\n")

@@ -34,10 +34,10 @@ def main():
                     metavar=("H", "W"))
     args = ap.parse_args()
 
-    from montecarlolocalisation_tpu import presets
-    from montecarlolocalisation_tpu.config import MappingConfig, SLAMConfig
-    from montecarlolocalisation_tpu.models import slam
-    from montecarlolocalisation_tpu.sim import robot
+    from montecarlolocalisation import presets
+    from montecarlolocalisation.config import MappingConfig, SLAMConfig
+    from montecarlolocalisation.models import slam
+    from montecarlolocalisation.sim import robot
 
     world = presets.make_world(num_beams=args.beams)
     m = world.maze

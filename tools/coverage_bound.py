@@ -23,7 +23,7 @@ sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), ".."))
 
 
 def bfs_dists(walls, start):
-    from montecarlolocalisation_tpu.config import (WALL_RIGHT, WALL_TOP,
+    from montecarlolocalisation.config import (WALL_RIGHT, WALL_TOP,
                                                    WALL_LEFT, WALL_BOTTOM)
     R, C = walls.shape[:2]
     dist = -np.ones((R, C), int)
@@ -52,8 +52,8 @@ def main():
     ap.add_argument("--maps", type=int, default=8)
     args = ap.parse_args()
 
-    from montecarlolocalisation_tpu.maps import generator
-    from montecarlolocalisation_tpu.maps.grid import from_walls
+    from montecarlolocalisation.maps import generator
+    from montecarlolocalisation.maps.grid import from_walls
 
     budget_m = args.ticks * args.speed
     print(f"budget: {args.ticks} ticks x {args.speed} m/tick = "
@@ -68,7 +68,7 @@ def main():
                 from_walls(gen(rows, cols, seed=1000 + i)).walls, bool)
             n = rows * cols
             # count open internal edges (graph edges)
-            from montecarlolocalisation_tpu.config import WALL_RIGHT, \
+            from montecarlolocalisation.config import WALL_RIGHT, \
                 WALL_BOTTOM
             edges = int((~walls[:, :-1, WALL_RIGHT]).sum()
                         + (~walls[:-1, :, WALL_BOTTOM]).sum())

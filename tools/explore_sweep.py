@@ -69,12 +69,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from montecarlolocalisation_tpu.config import (FilterConfig,
+    from montecarlolocalisation.config import (FilterConfig,
                                                    MappingConfig, SLAMConfig)
-    from montecarlolocalisation_tpu.maps import generator
-    from montecarlolocalisation_tpu.maps.grid import from_walls
-    from montecarlolocalisation_tpu.models import mapping, slam
-    from montecarlolocalisation_tpu.sim import frontier, robot
+    from montecarlolocalisation.maps import generator
+    from montecarlolocalisation.maps.grid import from_walls
+    from montecarlolocalisation.models import mapping, slam
+    from montecarlolocalisation.sim import frontier, robot
 
     angles = np.deg2rad(
         np.linspace(-118.0, 118.0, args.beams)).astype(np.float32)

@@ -1,6 +1,6 @@
 """Generate the canonical recorded replay fixture (BASELINE config 1).
 
-Writes montecarlolocalisation_tpu/data/replay_6x6.npz: a 240-tick wander on
+Writes montecarlolocalisation/data/replay_6x6.npz: a 240-tick wander on
 the default 6x6 maze with 36 beams, encoders + noisy scans + ground truth.
 Deterministic (fixed seeds) so the fixture is reproducible from source.
 
@@ -20,13 +20,13 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.io import EpisodeLog
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.sim import robot
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.io import EpisodeLog
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.sim import robot
 
 PKG = osp.join(osp.dirname(osp.abspath(__file__)), "..",
-               "montecarlolocalisation_tpu")
+               "montecarlolocalisation")
 OUT = osp.join(PKG, "data", "replay_6x6.npz")
 
 

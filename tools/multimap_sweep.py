@@ -1,7 +1,7 @@
 """Randomized-maps sweep driver (BASELINE config 4's maps axis).
 
 vmaps the full filter over generated worlds x episodes (traced maps ->
-MXU one-hot lookup path) and prints one JSON metrics line.
+one-hot lookup path) and prints one JSON metrics line.
 
   python tools/multimap_sweep.py --maps 64 --episodes-per-map 2 \
       --ticks 150 --style mixed
@@ -36,10 +36,10 @@ def main() -> None:
 
     import jax
 
-    from montecarlolocalisation_tpu.config import (FilterConfig,
+    from montecarlolocalisation.config import (FilterConfig,
                                                    SensorModelConfig)
-    from montecarlolocalisation_tpu.maps import generator
-    from montecarlolocalisation_tpu.parallel import episodes
+    from montecarlolocalisation.maps import generator
+    from montecarlolocalisation.parallel import episodes
 
     cfg = FilterConfig(num_particles=args.particles,
                        sensor=SensorModelConfig())

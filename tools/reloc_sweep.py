@@ -34,10 +34,10 @@ if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import dataclasses
-from montecarlolocalisation_tpu import presets
-from montecarlolocalisation_tpu.models import mapping
-from montecarlolocalisation_tpu.presets import _maze_from_wall_tensor
-from montecarlolocalisation_tpu.parallel import episodes
+from montecarlolocalisation import presets
+from montecarlolocalisation.models import mapping
+from montecarlolocalisation.presets import _maze_from_wall_tensor
+from montecarlolocalisation.parallel import episodes
 
 world = presets.make_world(num_particles=args.particles, num_beams=24,
                            refine_iters=args.refine, ess_threshold=args.ess)

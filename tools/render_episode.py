@@ -8,7 +8,7 @@ monte_carlo.cpp:563-608).
 
 Usage:
   python tools/render_episode.py --simulate --ticks 150 --out ep.gif
-  python tools/render_episode.py --log montecarlolocalisation_tpu/data/replay_6x6.npz
+  python tools/render_episode.py --log montecarlolocalisation/data/replay_6x6.npz
   python tools/render_episode.py --simulate --kidnap 80 --strip strip.ppm
 
 Outputs a horizontal PPM contact strip always (no imaging dependency) and
@@ -24,13 +24,13 @@ import numpy as np
 
 sys.path.insert(0, osp.join(osp.dirname(osp.abspath(__file__)), ".."))
 
-from montecarlolocalisation_tpu.config import FilterConfig, SensorModelConfig
-from montecarlolocalisation_tpu.io.logs import EpisodeLog
-from montecarlolocalisation_tpu.maps import from_map_file
-from montecarlolocalisation_tpu.utils import viz
+from montecarlolocalisation.config import FilterConfig, SensorModelConfig
+from montecarlolocalisation.io.logs import EpisodeLog
+from montecarlolocalisation.maps import from_map_file
+from montecarlolocalisation.utils import viz
 
 DEFAULT_MAP = osp.join(osp.dirname(osp.abspath(__file__)), "..",
-                       "montecarlolocalisation_tpu", "maps",
+                       "montecarlolocalisation", "maps",
                        "default_map.txt")
 
 
@@ -39,8 +39,8 @@ def run_and_capture(m, cfg, log: EpisodeLog, every: int, scale: int):
     import jax
     import jax.numpy as jnp
 
-    from montecarlolocalisation_tpu.models import filter as mcl
-    from montecarlolocalisation_tpu.models import sensor
+    from montecarlolocalisation.models import filter as mcl
+    from montecarlolocalisation.models import sensor
 
     angles = jnp.asarray(log.scan_angles, jnp.float32)
     step = jax.jit(
@@ -79,11 +79,11 @@ def run_closed_loop_capture(m, cfg, num_ticks: int, seed: int, every: int,
     import jax
     import jax.numpy as jnp
 
-    from montecarlolocalisation_tpu.config import APFConfig
-    from montecarlolocalisation_tpu.control import controllers as C
-    from montecarlolocalisation_tpu.planning import bfs
-    from montecarlolocalisation_tpu.sim import closed_loop
-    from montecarlolocalisation_tpu.utils.angles import normalize_angle
+    from montecarlolocalisation.config import APFConfig
+    from montecarlolocalisation.control import controllers as C
+    from montecarlolocalisation.planning import bfs
+    from montecarlolocalisation.sim import closed_loop
+    from montecarlolocalisation.utils.angles import normalize_angle
 
     angles = np.deg2rad(
         np.linspace(-118.0, 118.0, beams)).astype(np.float32)
@@ -119,7 +119,7 @@ def run_closed_loop_capture(m, cfg, num_ticks: int, seed: int, every: int,
         # APF side panel: the robot-frame force field at the TRUE pose
         # (scan re-simulated there; target = current waypoint in the
         # robot frame, matching the reference's "laser"-frame markers).
-        from montecarlolocalisation_tpu.models import sensor as sensor_mod
+        from montecarlolocalisation.models import sensor as sensor_mod
 
         scan = sensor_mod.simulate_scan(m, jnp.asarray(true_p[t]),
                                         jnp.asarray(angles), scfg)
@@ -153,11 +153,11 @@ def run_slam_capture(m, num_ticks: int, seed: int, every: int,
     import jax
     import jax.numpy as jnp
 
-    from montecarlolocalisation_tpu.config import (FilterConfig,
+    from montecarlolocalisation.config import (FilterConfig,
                                                    MappingConfig,
                                                    SLAMConfig)
-    from montecarlolocalisation_tpu.models import slam
-    from montecarlolocalisation_tpu.sim import robot
+    from montecarlolocalisation.models import slam
+    from montecarlolocalisation.sim import robot
 
     fcfg = FilterConfig()
     angles = np.deg2rad(
@@ -284,7 +284,7 @@ def main() -> None:
     else:
         import jax
 
-        from montecarlolocalisation_tpu.sim import robot
+        from montecarlolocalisation.sim import robot
 
         angles = np.deg2rad(
             np.linspace(-118.0, 118.0, args.beams)).astype(np.float32)

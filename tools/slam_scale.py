@@ -28,12 +28,12 @@ def main():
     ap.add_argument("--ticks-per-dispatch", type=int, default=8)
     args = ap.parse_args()
 
-    from montecarlolocalisation_tpu.config import (FilterConfig,
+    from montecarlolocalisation.config import (FilterConfig,
                                                    MappingConfig, SLAMConfig)
-    from montecarlolocalisation_tpu.maps import generator
-    from montecarlolocalisation_tpu.maps.grid import from_walls
-    from montecarlolocalisation_tpu.models import slam
-    from montecarlolocalisation_tpu.sim import robot
+    from montecarlolocalisation.maps import generator
+    from montecarlolocalisation.maps.grid import from_walls
+    from montecarlolocalisation.models import slam
+    from montecarlolocalisation.sim import robot
 
     fcfg = FilterConfig()
     angles = np.deg2rad(
